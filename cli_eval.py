@@ -78,15 +78,16 @@ def main(argv=None):
                         "(builtin, humaneval): generate -> execute -> "
                         "pass@k")
     p.add_argument("--cpu", action="store_true",
-                   help="force the CPU backend (the ambient environment "
-                        "may pin a TPU platform that admits one client)")
+                   help="run on the CPU instead of JAX's default backend")
     args = p.parse_args(argv)
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from any4.utils import setup_compile_cache
+    setup_compile_cache()
 
-    from any4_tpu.evals import harness
-    from any4_tpu.models import checkpoint, llama, loader
-    from any4_tpu.quant import api
+    from any4.evals import harness
+    from any4.models import checkpoint, llama, loader
+    from any4.quant import api
 
     harness.log_args(args.log_dir, vars(args))
 
@@ -110,7 +111,7 @@ def main(argv=None):
         qargs = parse_kv_args(args.quantize_args)
         sample_weight = None
         if args.calibrate:
-            from any4_tpu import calibrate as cal
+            from any4 import calibrate as cal
             ids = None
             if tokenizer is not None:
                 ids = jnp.asarray(
@@ -138,13 +139,13 @@ def main(argv=None):
 
     lm = None
     if args.lm_eval_tasks or args.code_tasks:
-        from any4_tpu.evals import tasks_local
-        from any4_tpu.evals.lm_eval_adapter import JaxCausalLM
+        from any4.evals import tasks_local
+        from any4.evals.lm_eval_adapter import JaxCausalLM
         tok = tokenizer or tasks_local.ByteTokenizer()
         lm = JaxCausalLM(params, cfg, tok, max_length=args.seqlen)
 
     if args.lm_eval_tasks:
-        from any4_tpu.evals import lm_eval_adapter, tasks_local
+        from any4.evals import lm_eval_adapter, tasks_local
         lm_tasks = [t.strip() for t in args.lm_eval_tasks.split(",")]
         local = [t for t in lm_tasks if t.startswith("local")]
         remote = [t for t in lm_tasks if not t.startswith("local")]
@@ -164,7 +165,7 @@ def main(argv=None):
                 print(f"lm-eval skipped: {e}", file=sys.stderr)
 
     if args.code_tasks:
-        from any4_tpu.evals import code_eval
+        from any4.evals import code_eval
         code_tasks = [t.strip() for t in args.code_tasks.split(",")]
         code_res = code_eval.run_code_tasks(
             lm, code_tasks, log_dir=args.log_dir, progress=True)

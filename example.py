@@ -9,8 +9,8 @@ import argparse
 import jax
 import jax.numpy as jnp
 
-from any4_tpu.models import generate, llama, loader
-from any4_tpu.quant import api
+from any4.models import generate, llama, loader
+from any4.quant import api
 
 
 def main():

@@ -1,4 +1,5 @@
-"""Fused dequant-GEMV kernel tests, run in Pallas interpret mode on CPU.
+"""Quantized-linear tests: the 4-bit lookup GEMV kernel in Pallas
+interpret mode, and the XLA formulations, on the CPU.
 
 Mirrors the reference's kernel test strategy (tests/tinygemm/):
 - ``test_identity_mul``: W = I must reproduce the input exactly
@@ -10,32 +11,28 @@ Mirrors the reference's kernel test strategy (tests/tinygemm/):
 - any4 tests negate the LUT to prove the LUT path is actually exercised
   (test_tinygemm_any4.py:24-26).
 
-Set ANY4_TPU_TEST_PLATFORM=tpu to run compiled on hardware.
+``INTERPRET`` runs the kernel interpreted; ``tests/test_chip.py`` runs it
+compiled on a GPU.
 """
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.ops import linear as lin
-from any4_tpu.ops import packing, quant
-from any4_tpu.ops.pallas import gemv
+from any4.ops import linear as lin
+from any4.ops import packing, quant
+from any4.ops.pallas import gemv
 
-INTERPRET = os.environ.get("ANY4_TPU_TEST_PLATFORM", "cpu") == "cpu"
+INTERPRET = True
 FMTS = ["int4", "any4", "nf4", "fp4", "mx4", "int8"]
 
 
-def _mm(x, qt, out_dtype=jnp.float32, **kw):
-    if qt.fmt in lin._GROUPED_FMTS or qt.fmt in lin._ROWSCALE_FMTS:
-        # XLA-dot formats have no Pallas kernel: the production dispatch
-        # IS the op under test
-        return lin.linear(jnp.asarray(x), qt).astype(out_dtype)
-    return gemv.quantized_matmul(
-        x, qt.packed, qt.scales, qt.zeros, qt.lut,
-        fmt=lin._kernel_fmt(qt.fmt, qt.lut), group_size=qt.group_size,
-        n=qt.shape[0], interpret=INTERPRET, out_dtype=out_dtype, **kw)
+def _mm(x, qt, out_dtype=jnp.float32):
+    """The production dispatch with the kernel interpreted: row-planar
+    4-bit formats at g % 128 == 0 and m <= 16 run the lookup GEMV, every
+    other case its XLA formulation."""
+    return lin.linear(jnp.asarray(x), qt,
+                      interpret=INTERPRET).astype(out_dtype)
 
 
 def _ref(x, qt):
@@ -59,13 +56,11 @@ class TestIdentityMul:
     def test_identity(self, fmt):
         k = 1024
         w = jnp.eye(k, dtype=jnp.float32)
-        # layout="row" pins the planar fused-table kernel, whose dequant
-        # table rounds lut*s+z to bf16 exactly like the reference's
-        # dequantize-to-bf16-then-mma, so identity is EXACT in the bf16
-        # domain (reference test_identity_mul uses torch.equal). The
-        # routed DEFAULT for int4 is now the pair-packed magic kernel,
-        # which is near-exact (1 bf16 ulp) -- covered by
-        # TestInt4Pair.test_identity_near_exact.
+        # int4 runs the lookup kernel, which rounds lut*s+z to bf16
+        # exactly like the reference's dequantize-to-bf16-then-mma, so
+        # identity is EXACT in the bf16 domain (reference
+        # test_identity_mul uses torch.equal); row-major int8 runs
+        # dequantize-then-dot, equally exact
         qt = lin.quantize_tensor(w, fmt, group_size=128, layout="row")
         x = jax.random.normal(jax.random.PRNGKey(0), (4, k),
                               jnp.float32).astype(jnp.bfloat16)
@@ -75,12 +70,8 @@ class TestIdentityMul:
             np.asarray(x.astype(jnp.float32)))
 
     def test_identity_any4(self):
-        # any4 runs the post-dot-affine kernel (gemv._q4post_kernel): the
-        # codebook is rounded to bf16 pre-dot and the group affine runs in
-        # f32 post-dot, so identity holds to bf16 rounding of the affine
-        # reconstruction rather than bit-exactly (the reference's
-        # torch.equal claim applies to its per-element bf16(lut*s+z)
-        # dequant, which is what our g<128 fused-table path still does)
+        # any4's learned LUT reconstructs the identity's 0/1 only to the
+        # k-means fit, so identity holds to that fit, not bit-exactly
         k = 1024
         w = jnp.eye(k, dtype=jnp.float32)
         qt = lin.quantize_tensor(w, "any4", group_size=128, kmeans_iters=25)
@@ -150,24 +141,25 @@ class TestGeneralMul:
 
     @pytest.mark.parametrize("fmt", ["int4", "any4", "nf4"])
     def test_select_variant_matches_gather(self, fmt):
-        # use_gather=False runs the select-16 one-hot LUT contraction
-        # (measurement alternative to the production path, PERF_NOTES.md).
-        # int4 still runs the fused-table gather, which computes
-        # bf16(lut*s+z) per element exactly like the select variant ->
-        # bit-equal; any4/nf4 run the post-dot-affine kernel
-        # (_q4post_kernel), whose bf16 rounding point differs -> compare
-        # at the shared kernel tolerance instead.
+        # the XLA path decodes codes with a 16-way select chain
+        # (dequantize_tensor); the kernel gathers from the table. Both
+        # round lut*s+z to bf16 per element, so with bf16 activations
+        # the two agree to f32 summation order
         n, k = 256, 2048
         w = jax.random.normal(jax.random.PRNGKey(21), (n, k))
         kw = dict(kmeans_iters=6) if fmt == "any4" else {}
         qt = lin.quantize_tensor(w, fmt, group_size=128, **kw)
-        x = jax.random.normal(jax.random.PRNGKey(22), (2, k))
-        yg = lin.linear(x, qt, interpret=True, use_gather=True)
-        ys = lin.linear(x, qt, interpret=True, use_gather=False)
-        if fmt == "int4":
-            np.testing.assert_array_equal(np.asarray(yg), np.asarray(ys))
-        else:
-            _assert_close(yg, ys, tol=5e-3)
+        # f32 activations that bf16 represents exactly
+        x = jax.random.normal(jax.random.PRNGKey(22), (2, k)
+                              ).astype(jnp.bfloat16).astype(jnp.float32)
+        yg = lin.linear(x, qt, interpret=True)
+        ys = lin.linear(x, qt)
+        xb = x
+        wb = lin.dequantize_tensor(qt, dtype=jnp.bfloat16).astype(
+            jnp.float32)
+        ref = np.asarray(xb) @ np.asarray(wb).T
+        _assert_close(yg, ref, tol=1e-5)
+        _assert_close(ys, ref, tol=5e-3)
 
     def test_binary_weights_exact(self):
         # W in {0,1}: int4 grouping is exact, so the kernel must match the
@@ -203,7 +195,7 @@ class TestAny4LutIsUsed:
 
     @pytest.mark.parametrize("per_row", [False, True])
     def test_per_row_variants_fused_matches_dequant(self, per_row):
-        """Fused-kernel vs dequant parity for BOTH LUT layouts -- the
+        """Kernel vs dequant parity for BOTH LUT layouts -- the
         reference treats global-LUT any4 as a first-class variant
         (test_tinygemm_any4.py:194-220, per_row in {False, True};
         `Any4_Global_Grouped` dispatch, TinyGemm_int4.cu:622-746)."""
@@ -211,10 +203,9 @@ class TestAny4LutIsUsed:
         w = jax.random.normal(jax.random.PRNGKey(40), (n, k))
         qt = lin.quantize_tensor(w, "any4", group_size=128, kmeans_iters=10,
                                  per_row=per_row)
-        # any4 defaults to the transposed packing at g%128==0: LUT is
-        # stored [16, n] (per-row) / [16, 1] (global)
-        assert qt.fmt == "any4t"
-        assert qt.lut.shape == ((16, n) if per_row else (16, 1))
+        # the kernel's row-planar packing: LUT [n, 16] per row or [1, 16]
+        assert qt.fmt == "any4"
+        assert qt.lut.shape == ((n, 16) if per_row else (1, 16))
         x = jax.random.normal(jax.random.PRNGKey(41), (2, k))
         y = lin.linear(x, qt, interpret=INTERPRET)
         ref = _ref(x, qt)
@@ -232,14 +223,10 @@ class TestAny4LutIsUsed:
         lut_a = jnp.tile(jnp.linspace(-1, 1, 16)[None], (n, 1))
         lut_b = lut_a * jnp.arange(1, n + 1, dtype=jnp.float32)[:, None]
         x = jax.random.normal(jax.random.PRNGKey(16), (1, k))
-        ya = gemv.quantized_matmul(x, packed, scales, zeros, lut_a,
-                                   fmt="any4", group_size=g, n=n,
-                                   interpret=INTERPRET,
-                                   out_dtype=jnp.float32)
-        yb = gemv.quantized_matmul(x, packed, scales, zeros, lut_b,
-                                   fmt="any4", group_size=g, n=n,
-                                   interpret=INTERPRET,
-                                   out_dtype=jnp.float32)
+        ya = gemv.lut_gemv(x, packed, scales, zeros, lut_a, group_size=g,
+                           interpret=INTERPRET)
+        yb = gemv.lut_gemv(x, packed, scales, zeros, lut_b, group_size=g,
+                           interpret=INTERPRET)
         # bf16 rounding of LUT values inside the kernel: ~0.4% relative,
         # compared at the common (divided-out) magnitude
         _assert_close(np.asarray(yb)[0] / np.arange(1, n + 1),
@@ -247,8 +234,8 @@ class TestAny4LutIsUsed:
 
 
 class TestInt4Pair:
-    """Pair-packed magic-number int4 (fmt='int4p'): same numbers as int4,
-    gather-free kernel (PERF_NOTES magic2 design)."""
+    """Pair-packed int4 (fmt='int4p'): same numbers as int4, a storage
+    layout computed through dequantize-then-dot."""
 
     def test_pack_roundtrip(self):
         codes = jax.random.randint(jax.random.PRNGKey(60), (32, 1536),
@@ -283,11 +270,8 @@ class TestInt4Pair:
         _assert_close(y, _ref(x, qt))
 
     def test_identity_near_exact(self):
-        """int4p applies scales to f32 partial dots AFTER the MXU, so the
-        128*sum(x)*s term cancels in f32 with ~1e-5 relative residue --
-        identity is exact to 1 bf16 ulp, not bit-exact like the
-        fused-table kernel (whose dequant rounds to bf16 pre-dot). This is
-        the documented accuracy/speed trade of the pair-packed path."""
+        """int4p reconstructs the identity exactly, so the dot reproduces
+        the input to within 1 bf16 ulp."""
         k = 1024
         w = jnp.eye(k, dtype=jnp.float32)
         qt = lin.quantize_tensor(w, "int4p", group_size=128)
@@ -309,8 +293,8 @@ class TestInt4Pair:
 
 
 class TestInt8Pair:
-    """Split-byte magic-number int8 (fmt='int8p'): same numbers as int8,
-    two nibble planes with scales (s, 16s) on the pair-packed kernel."""
+    """Split-byte int8 (fmt='int8p'): same numbers as int8, two nibble
+    planes with scales (s, 16s) in the pair-packed layout."""
 
     def test_dequant_matches_int8(self):
         w = jax.random.normal(jax.random.PRNGKey(70), (32, 1024))
@@ -339,13 +323,34 @@ class TestInt8Pair:
         assert qb.packed.size * 4 == qa.packed.size  # int32 words vs int8
 
 
+def _int_emulation(x, qt):
+    """float64 emulation of the int8-activation path's exact integer
+    group dots + per-group f32 affine:
+    ``y = sx * sum_g [P_g s_g + sum(xq_g) z_g]`` over centered codes."""
+    xq, sx = lin.quantize_activations(x)
+    xq = np.asarray(xq, np.int64)
+    codes = np.asarray(lin._grouped_codes(qt), np.int64)   # [G, n, 128]
+    G = codes.shape[0]
+    g = qt.group_size
+    # stored scales are [kp/g, n]; expand to 128-granularity rows
+    s = np.repeat(np.asarray(qt.scales, np.float64), g // 128, axis=0)[:G]
+    z = np.repeat(np.asarray(qt.zeros, np.float64), g // 128, axis=0)[:G]
+    k = xq.shape[1]
+    xq = np.pad(xq, ((0, 0), (0, G * 128 - k)))
+    ref = np.zeros((xq.shape[0], codes.shape[1]))
+    for gi in range(G):
+        xg = xq[:, gi * 128:(gi + 1) * 128]
+        P = xg @ codes[gi].T
+        ref += P * s[gi][None] + xg.sum(axis=1, keepdims=True) * z[gi][None]
+    return ref * np.asarray(sx, np.float64)
+
+
 class TestW4A8:
-    """Quad-packed int4 weights x int8 activations on the int8 MXU
-    (fmt='w4a8'): same weight numbers as int4; activations per-row
-    absmax-int8. No reference analog (tinygemm is weight-only); the
-    integer dot inside the kernel is exact, so the kernel must match a
-    float64 emulation of the same integer math to f32-accumulation
-    tolerance."""
+    """Quad-packed int4 weights x int8 activations (fmt='w4a8'): same
+    weight numbers as int4; activations per-row absmax-int8. No reference
+    analog (tinygemm is weight-only); the integer group dots are exact,
+    so the path must match a float64 emulation of the same integer math
+    to f32-accumulation tolerance."""
 
     def test_pack_roundtrip(self):
         codes = jax.random.randint(jax.random.PRNGKey(80), (32, 1536),
@@ -377,26 +382,13 @@ class TestW4A8:
         qt = lin.quantize_tensor(w, "w4a8", group_size=g)
         x = jax.random.normal(jax.random.PRNGKey(84), (2, k))
         y = lin.linear(x, qt, interpret=INTERPRET)
-        # float64 emulation of the kernel's exact integer dot + per-group
-        # f32 affine: y = sx * sum_g [P_g s_g + sum(xq_g) (z_g - 8 s_g)]
-        xq, sx = lin.quantize_activations(x)
-        xq = np.asarray(xq, np.int64)
-        codes = np.asarray(packing.unpack_int4_quad(qt.packed, k),
-                           np.int64)
-        # stored scales are [kp/g, n]; expand to 128-granularity rows
-        # like the kernel does (_expand_plane_scales)
-        s = np.repeat(np.asarray(qt.scales, np.float64).T, g // 128,
-                      axis=1)[:, :k // 128]                    # [n, k/128]
-        z = np.repeat(np.asarray(qt.zeros, np.float64).T, g // 128,
-                      axis=1)[:, :k // 128]
-        ref = np.zeros((2, n))
-        for gi in range(k // 128):
-            sl = slice(gi * 128, (gi + 1) * 128)
-            P = xq[:, sl] @ codes[:, sl].T
-            xs = xq[:, sl].sum(axis=1, keepdims=True)
-            ref += P * s[None, :, gi] + xs * (z - 8.0 * s)[None, :, gi]
-        ref = ref * np.asarray(sx, np.float64)
-        _assert_close(np.asarray(y, np.float32), ref, tol=1e-4)
+        # the packed codes are 0..15 around the int4 midpoint 8
+        codes = np.asarray(packing.unpack_int4_quad(qt.packed, k), np.int64)
+        np.testing.assert_array_equal(
+            np.asarray(lin._grouped_codes(qt)).transpose(1, 0, 2)
+            .reshape(n, -1)[:, :k], codes - 8)
+        _assert_close(np.asarray(y, np.float32), _int_emulation(x, qt),
+                      tol=1e-4)
 
     def test_linear_matches_fakequant(self):
         # end-to-end tolerance vs dequantized weights + fake-quantized
@@ -412,32 +404,39 @@ class TestW4A8:
         _assert_close(np.asarray(y, np.float32), xd @ wd.T, tol=1e-3)
 
     def test_prefill_chunked_matches_fakequant(self):
-        # prefill (m > _INT8_M_TILE) runs the SAME fused int8 kernel
-        # chunked over m -- no dequant fallback -- so it must match the
-        # fake-quant reference at every chunk boundary
-        n, k, m = 128, 1024, lin._INT8_M_TILE + 40
+        # prefill-shaped m (> _XLA_GROUPED_M_MAX) dequantizes the weight
+        # and runs XLA's dot on the float activations; the decode-shaped
+        # integer path on each <= _XLA_GROUPED_M_MAX chunk of the same
+        # rows differs from it only by the activation quantization
+        n, k, m = 128, 1024, lin._XLA_GROUPED_M_MAX + 40
         w = jax.random.normal(jax.random.PRNGKey(87), (n, k))
         qt = lin.quantize_tensor(w, "w4a8", group_size=128)
         x = jax.random.normal(jax.random.PRNGKey(88), (m, k))
         y = lin.linear(x, qt, interpret=INTERPRET)
+        wd = np.asarray(lin.dequantize_tensor(qt, dtype=jnp.float32))
+        _assert_close(np.asarray(y, np.float32),
+                      np.asarray(x, np.float32) @ wd.T, tol=1e-4)
+        step = lin._XLA_GROUPED_M_MAX
+        chunks = np.concatenate([
+            np.asarray(lin.linear(x[i:i + step], qt), np.float32)
+            for i in range(0, m, step)])
         xq, sx = lin.quantize_activations(x)
         xd = np.asarray(xq, np.float32) * np.asarray(sx, np.float32)
-        wd = np.asarray(lin.dequantize_tensor(qt, dtype=jnp.float32))
-        _assert_close(np.asarray(y, np.float32), xd @ wd.T, tol=1e-3)
+        _assert_close(chunks, xd @ wd.T, tol=1e-3)
+        _assert_close(chunks, np.asarray(y, np.float32), tol=2e-2)
 
     def test_prefill_3d_batch_shape(self):
-        # lead dims flatten and restore around the chunked kernel path
+        # lead dims flatten and restore around the prefill path
         n, k = 128, 1024
         w = jax.random.normal(jax.random.PRNGKey(96), (n, k))
         qt = lin.quantize_tensor(w, "w4a8", group_size=128)
         x = jax.random.normal(jax.random.PRNGKey(97), (2, 160, k))
         y = lin.linear(x, qt, interpret=INTERPRET)
         assert y.shape == (2, 160, n)
-        xq, sx = lin.quantize_activations(x)
-        xd = np.asarray(xq, np.float32) * np.asarray(sx, np.float32)
         wd = np.asarray(lin.dequantize_tensor(qt, dtype=jnp.float32))
         _assert_close(np.asarray(y, np.float32),
-                      np.einsum("btk,nk->btn", xd, wd), tol=1e-3)
+                      np.einsum("btk,nk->btn", np.asarray(x), wd),
+                      tol=1e-4)
 
     def test_row_sharded(self):
         n, k = 64, 2048
@@ -452,36 +451,23 @@ class TestW4A8:
 
     @pytest.mark.parametrize("fmt", ["w4a8", "w8a8"])
     def test_fused_act_quant_matches_external(self, fmt):
-        # decode-shaped m fuses the per-row absmax int8 quantize and the
-        # y*sx post-scale into the kernel (gemv._w4a8f_kernel); the math
-        # (full-row absmax, f32 round/clip, f32 scale point) is identical
-        # to the external quantize_activations path, so outputs must agree
-        # to f32 accumulation-order tolerance at every k-chunk count
-        from any4_tpu.ops.pallas import gemv
+        # decode-shaped m quantizes activations per row (full-row absmax,
+        # f32 round/clip) and scales the f32 group sums back by sx; the
+        # result must match the float64 integer emulation built on the
+        # external quantize_activations at every decode m
         n, k = 128, 4096
         w = jax.random.normal(jax.random.PRNGKey(98), (n, k))
-        # pin the PALLAS kernel layout (w8a8 default-routes to the
-        # grouped XLA path, which has no fused-act kernel variant)
         qt = lin.quantize_tensor(w, "w8a8q" if fmt == "w8a8" else fmt,
                                  group_size=128)
-        fmt = qt.fmt
-        for m in (1, 16, gemv.FUSED_ACT_M_MAX):
+        for m in (1, 16, 64):
             x = jax.random.normal(jax.random.PRNGKey(99 + m), (m, k))
-            y_fused = gemv.quantized_matmul(
-                x, qt.packed, qt.scales, qt.zeros, None, fmt=fmt,
-                group_size=128, n=n, out_dtype=jnp.float32,
-                interpret=INTERPRET)
-            xq, sx = lin.quantize_activations(x)
-            y_ext = gemv.quantized_matmul(
-                xq, qt.packed, qt.scales, qt.zeros, None, fmt=fmt,
-                group_size=128, n=n, out_dtype=jnp.float32,
-                interpret=INTERPRET) * sx
-            _assert_close(np.asarray(y_fused), np.asarray(y_ext), tol=1e-5)
+            y = lin.linear(x, qt).astype(jnp.float32)
+            _assert_close(np.asarray(y), _int_emulation(x, qt), tol=1e-5)
 
 
 class TestW8A8:
     """int8 weights x int8 activations (fmt='w8a8'): the packed array IS
-    the centered int8 code matrix; one int8 MXU dot per 128-group."""
+    the centered int8 code matrix; one int8 dot per 128-group."""
 
     def test_dequant_matches_int8(self):
         w = jax.random.normal(jax.random.PRNGKey(91), (32, 1024))
@@ -521,7 +507,7 @@ class TestMx4Nan:
     test_nan + quantize_mx4 NaN exponent storage, utils.py:137-191)."""
 
     def test_nan_input_poisons_group(self):
-        from any4_tpu.ops import quant
+        from any4.ops import quant
         w = np.zeros((8, 64), np.float32)
         w[0, 3] = np.nan
         codes, exps = quant.mx4_quantize(jnp.asarray(w), 32)
@@ -533,7 +519,7 @@ class TestMx4Nan:
         assert np.isfinite(deq[1:]).all()
 
     def test_e8m0_nan_byte_decodes_nan(self):
-        from any4_tpu.ops import quant
+        from any4.ops import quant
         s = np.asarray(quant.mx4_scales(jnp.asarray([[255]], jnp.uint8)))
         assert np.isnan(s).all()
         s254 = np.asarray(quant.mx4_scales(jnp.asarray([[254]], jnp.uint8)))
@@ -541,13 +527,20 @@ class TestMx4Nan:
 
     def test_kernel_propagates_nan_scale(self):
         """Poison one group's e8m0 exponent post-quantization (the
-        reference pokes w_e[0][0]=255) -- the fused kernel output must go
-        NaN, and stay finite at 254."""
+        reference pokes w_e[0][0]=255) -- the output must go NaN, and stay
+        finite at 254. g=32 (mx4's default) runs the XLA path."""
+        self._nan_scale(32)
+
+    def test_lookup_kernel_propagates_nan_scale(self):
+        # g=128 runs the lookup kernel
+        self._nan_scale(128)
+
+    def _nan_scale(self, g):
         from dataclasses import replace
-        from any4_tpu.ops import quant
+        from any4.ops import quant
         n, k = 128, 1024
         w = jax.random.normal(jax.random.PRNGKey(50), (n, k))
-        qt = lin.quantize_tensor(w, "mx4", group_size=32)
+        qt = lin.quantize_tensor(w, "mx4", group_size=g)
         x = jnp.ones((1, k), jnp.float32)
         y0 = np.asarray(_mm(x, qt), np.float32)
         assert np.isfinite(y0).all()
@@ -559,12 +552,16 @@ class TestMx4Nan:
 
 class TestLinearDispatch:
     def test_linear_fused_vs_dequant_consistent(self):
+        # interpret=True runs the kernel; without it the CPU runs the
+        # XLA formulation
         n, k = 256, 1024
         w = jax.random.normal(jax.random.PRNGKey(17), (n, k))
         qt = lin.quantize_tensor(w, "int4", group_size=128)
         x = jax.random.normal(jax.random.PRNGKey(18), (2, k))
+        assert lin.lut_kernel_applies(qt, 2, interpret=True)
+        assert not lin.lut_kernel_applies(qt, 2)
         y_fused = lin.linear(x, qt, interpret=INTERPRET)
-        y_deq = lin.linear(x, qt, fused_m_max=0)
+        y_deq = lin.linear(x, qt)
         _assert_close(np.asarray(y_fused, np.float32),
                       np.asarray(y_deq, np.float32))
 
@@ -594,8 +591,8 @@ class TestQuantizedTensor:
         qt = lin.quantize_tensor(w, "int4", group_size=128)
         leaves, treedef = jax.tree_util.tree_flatten(qt)
         qt2 = jax.tree_util.tree_unflatten(treedef, leaves)
-        # int4 routes to the pair-packed default (TestDefaultRouting)
-        assert qt2.fmt == "int4p" and qt2.shape == (64, 1024)
+        # int4 stays in the kernel's row-planar packing
+        assert qt2.fmt == "int4" and qt2.shape == (64, 1024)
         np.testing.assert_array_equal(np.asarray(qt2.packed),
                                       np.asarray(qt.packed))
 
@@ -620,19 +617,18 @@ class TestQuantizedTensor:
 
 
 class TestTransposedLUT:
-    """Transposed-layout LUT kernels (fmt='any4t'/'lut4t'): codes packed
-    k-on-sublanes (packing.pack_int4_transposed) so the 16-entry codebook
-    gathers along the sublane dimension (tpu.dynamic_gather dim 0) instead
-    of the lane gather of the row-major kernels. Numerics must match the
-    row-major q4post path (same bf16 codebook rounding, f32 post-dot
-    affine)."""
+    """Transposed-layout LUT formats (fmt='any4t'/'nf4t'/'fp4t'): codes
+    packed k-major (packing.pack_int4_transposed), a storage layout read
+    through dequantize-then-dot. Numbers must match the row-planar
+    layout's kernel."""
 
-    def _transposed_inputs(self, qt):
+    def _transposed(self, qt, fmt):
         codes = packing.unpack_int4(qt.packed, qt.shape[1])
         pt = packing.pack_int4_transposed(codes)
         lut_t = (qt.lut.T if qt.lut.shape[0] == qt.shape[0]
                  else qt.lut.reshape(1, 16).T)
-        return pt, lut_t
+        from dataclasses import replace
+        return replace(qt, packed=pt, lut=lut_t, fmt=fmt)
 
     def test_pack_transposed_roundtrip(self):
         codes = jax.random.randint(jax.random.PRNGKey(90), (32, 1536),
@@ -657,11 +653,7 @@ class TestTransposedLUT:
                                  layout="row")
         x = jax.random.normal(jax.random.PRNGKey(93), (m, k))
         y_ref = _mm(x, qt)
-        pt, lut_t = self._transposed_inputs(qt)
-        y_t = gemv.quantized_matmul(
-            x, pt, qt.scales, qt.zeros, lut_t, fmt="any4t",
-            group_size=128, n=n, interpret=INTERPRET,
-            out_dtype=jnp.float32)
+        y_t = _mm(x, self._transposed(qt, "any4t"))
         _assert_close(y_t, np.asarray(y_ref), tol=5e-3)
 
     @pytest.mark.parametrize("fmt", ["nf4", "fp4"])
@@ -671,11 +663,7 @@ class TestTransposedLUT:
         qt = lin.quantize_tensor(w, fmt, group_size=128, layout="row")
         x = jax.random.normal(jax.random.PRNGKey(95), (1, k))
         y_ref = _mm(x, qt)
-        pt, lut_t = self._transposed_inputs(qt)
-        y_t = gemv.quantized_matmul(
-            x, pt, qt.scales, qt.zeros, lut_t, fmt="lut4t",
-            group_size=128, n=n, interpret=INTERPRET,
-            out_dtype=jnp.float32)
+        y_t = _mm(x, self._transposed(qt, fmt + "t"))
         _assert_close(y_t, np.asarray(y_ref), tol=5e-3)
 
     def test_any4t_n_k_padding(self):
@@ -685,18 +673,14 @@ class TestTransposedLUT:
         qt = lin.quantize_tensor(w, "any4", group_size=128, kmeans_iters=4,
                                  layout="row")
         x = jax.random.normal(jax.random.PRNGKey(97), (1, k))
-        pt, lut_t = self._transposed_inputs(qt)
-        y_t = gemv.quantized_matmul(
-            x, pt, qt.scales, qt.zeros, lut_t, fmt="any4t",
-            group_size=128, n=n, interpret=INTERPRET,
-            out_dtype=jnp.float32)
+        y_t = _mm(x, self._transposed(qt, "any4t"))
         ref = _ref(x, qt)
         assert y_t.shape == (1, n)
         _assert_close(y_t, ref, tol=5e-3)
 
     def test_quantize_tensor_any4t_matches_any4(self):
-        # the production-format entry: same numbers as any4, transposed
-        # packing + [16, n] LUT, dispatched through linear()
+        # the explicit transposed format: same numbers as any4,
+        # transposed packing + [16, n] LUT, dispatched through linear()
         n, k = 128, 2048
         w = jax.random.normal(jax.random.PRNGKey(98), (n, k)) * 0.05
         qa = lin.quantize_tensor(w, "any4", group_size=128, kmeans_iters=4,
@@ -729,11 +713,9 @@ class TestTransposedLUT:
 
 
 class TestTransposedInt8:
-    """Transposed int8 kernels (fmt='w8a8t'/'int8t', the production int8
-    defaults; packing.pack_int8_transposed): codes [kp, n] dot in the
-    MXU's natural orientation -- the row-major int8 dot implied an int8
-    operand transpose measured at 62 vs ~37 us/layer structural floor
-    (benchmarks/lab_any4_r3.json a8_floor; VERDICT r3 weak #3)."""
+    """Transposed int8 formats (fmt='w8a8t'/'int8t';
+    packing.pack_int8_transposed, codes [kp, n]) and the k-dependent int8
+    routing between the quad and grouped layouts."""
 
     def test_pack_int8_transposed_roundtrip(self):
         q = jax.random.randint(jax.random.PRNGKey(50), (32, 1536),
@@ -748,10 +730,9 @@ class TestTransposedInt8:
                                       np.asarray(q[:, :1024]))
 
     def test_int8_routing_is_k_dependent(self):
-        # round 5: int8-weight formats route by k -- small blocks sit at
-        # their HBM floor on the quad Pallas kernel, large blocks escape
-        # the Mosaic staging wall on the grouped XLA dot (PERF_NOTES
-        # round 5). All layouts reconstruct identically.
+        # int8-weight formats route by k: the quad layout below k=4096,
+        # the grouped layout from there. All layouts reconstruct
+        # identically.
         w = jax.random.normal(jax.random.PRNGKey(51), (64, 1024))
         wl = jax.random.normal(jax.random.PRNGKey(52), (64, 4096)) * 0.1
         for fmt in ("int8", "w8a8"):
@@ -777,13 +758,13 @@ class TestTransposedInt8:
         w3 = jax.random.normal(jax.random.PRNGKey(53), (63, 1024))
         assert lin.quantize_tensor(w3, "int8", group_size=128).fmt \
             == "int8g"
-        # g < 128 keeps the row-major fused-table path
+        # g < 128 keeps the row-major layout
         q32 = lin.quantize_tensor(w, "int8", group_size=64)
         assert q32.fmt == "int8"
 
     @pytest.mark.parametrize("fmt", ["int8t", "w8a8t"])
     def test_transposed_variants_match_dequant(self, fmt):
-        # kept addressable for measurement (lab_int8_r4); not the default
+        # explicitly addressable; not the default
         n, k = 128, 1024
         w = jax.random.normal(jax.random.PRNGKey(58), (n, k)) * 0.05
         qt = lin.quantize_tensor(w, fmt, group_size=128)
@@ -795,7 +776,7 @@ class TestTransposedInt8:
     @pytest.mark.parametrize("fmt", ["int8", "w8a8"])
     @pytest.mark.parametrize("m", [1, 4, 80, 200])
     def test_matches_dequant_reference(self, fmt, m):
-        # k=2048 routes to the quad Pallas kernel (k-dependent routing)
+        # k=2048 routes to the quad layout (k-dependent routing)
         n, k = 256, 2048
         w = jax.random.normal(jax.random.PRNGKey(52), (n, k)) * 0.05
         qt = lin.quantize_tensor(w, fmt, group_size=128)
@@ -821,22 +802,25 @@ class TestTransposedInt8:
         _assert_close(y, ref, tol=2e-2 if fmt == "w8a8" else 5e-3)
 
     def test_w8a8t_external_act_quant_matches_fused(self):
-        # prefill (int8 x, external quantize) and decode (float x, fused
-        # act quant) must agree: same absmax, same round, same scale point
+        # the quad layout's integer group dots on the externally
+        # quantized activations: same absmax, same round, same scale
+        # point as the float64 emulation
+        self._external_act_quant("w8a8q")
+
+    @pytest.mark.parametrize("fmt", ["w8a8t", "w8a8"])
+    def test_other_w8a8_layouts_match_emulation(self, fmt):
+        # the transposed and row-major layouts unpack to the same codes
+        self._external_act_quant(fmt)
+
+    def _external_act_quant(self, fmt):
         n, k = 128, 1024
         w = jax.random.normal(jax.random.PRNGKey(54), (n, k)) * 0.05
-        qt = lin.quantize_tensor(w, "w8a8q", group_size=128)
+        qt = lin.quantize_tensor(w, fmt, group_size=128,
+                                 layout="row" if fmt == "w8a8" else None)
+        assert qt.fmt == fmt
         x = jax.random.normal(jax.random.PRNGKey(55), (2, k))
-        y_fused = gemv.quantized_matmul(
-            x, qt.packed, qt.scales, qt.zeros, None, fmt="w8a8q",
-            group_size=128, n=n, interpret=INTERPRET,
-            out_dtype=jnp.float32)
-        xq, sx = lin.quantize_activations(x)
-        y_ext = gemv.quantized_matmul(
-            xq, qt.packed, qt.scales, qt.zeros, None, fmt="w8a8q",
-            group_size=128, n=n, interpret=INTERPRET,
-            out_dtype=jnp.float32) * sx
-        np.testing.assert_allclose(np.asarray(y_fused), np.asarray(y_ext),
+        y = lin.linear(x, qt).astype(jnp.float32)
+        np.testing.assert_allclose(np.asarray(y), _int_emulation(x, qt),
                                    rtol=1e-5, atol=1e-5)
 
     def test_row_shards_dequant_and_linear(self):
@@ -857,9 +841,8 @@ class TestTransposedInt8:
 
 class TestAny4Q8:
     """any4q8: the learned per-row LUT snapped to an int8 grid with codes
-    MATERIALIZED int8 at pack time -- any4-class accuracy riding the
-    transposed int8-MXU kernel (VERDICT r3 'any4-q8' design; 8
-    bits/weight)."""
+    MATERIALIZED int8 at pack time -- any4-class accuracy on the int8
+    group-dot path (8 bits/weight)."""
 
     def test_wmse_matches_any4(self):
         n, k = 128, 2048
@@ -879,7 +862,7 @@ class TestAny4Q8:
     def test_linear_matches_dequant(self):
         n, k = 128, 1024
         w = jax.random.normal(jax.random.PRNGKey(61), (n, k)) * 0.05
-        # k < 4096 keeps the quad Pallas kernel (k-dependent routing)
+        # k < 4096 keeps the quad layout (k-dependent routing)
         qt = lin.quantize_tensor(w, "any4q8", group_size=128,
                                  kmeans_iters=6)
         assert qt.fmt == "any4q8" and qt.lut is None
@@ -890,7 +873,7 @@ class TestAny4Q8:
         _assert_close(y, _ref(x, qt), tol=2e-2)
 
     def test_grouped_at_large_k(self):
-        # k >= 4096 routes to the grouped XLA layout (round 5)
+        # k >= 4096 routes to the grouped layout
         n, k = 64, 4096
         w = jax.random.normal(jax.random.PRNGKey(69), (n, k)) * 0.05
         qt = lin.quantize_tensor(w, "any4q8", group_size=128,
@@ -941,20 +924,23 @@ class TestAny4Q8:
 
 
 class TestDefaultRouting:
-    """Round-5 format routing (VERDICT r4 #8): uniform int4 defaults to
-    the pair-packed magic-number layout wherever it applies, exactly as
-    any4 defaults to any4t; layout="row" (embeddings) opts out."""
+    """Format routing: the 4-bit formats default to the row-planar packing
+    the lookup kernel reads; the pair-packed int4 layout and the
+    transposed LUT layouts stay addressable with the same numbers."""
 
     def test_int4_defaults_to_pair_packing(self):
         w = jax.random.normal(jax.random.PRNGKey(1), (64, 256), jnp.float32)
         qt = lin.quantize_tensor(w, "int4", group_size=128)
-        assert qt.fmt == "int4p"
-        qrow = lin.quantize_tensor(w, "int4", group_size=128, layout="row")
-        assert qrow.fmt == "int4"
+        assert qt.fmt == "int4"
+        qpair = lin.quantize_tensor(w, "int4p", group_size=128)
+        assert qpair.fmt == "int4p"
+        qt_t = lin.quantize_tensor(w, "nf4", group_size=128,
+                                   layout="transposed")
+        assert qt_t.fmt == "nf4t"
         # identical numbers in either packing
         np.testing.assert_array_equal(
             np.asarray(lin.dequantize_tensor(qt, jnp.float32)),
-            np.asarray(lin.dequantize_tensor(qrow, jnp.float32)))
+            np.asarray(lin.dequantize_tensor(qpair, jnp.float32)))
 
     def test_int4_row_fallbacks(self):
         # odd n and sub-128 groups keep the planar packing
@@ -965,10 +951,8 @@ class TestDefaultRouting:
 
 
 class TestChunkedPrefill:
-    """Large-m linear for the bf16-dot formats chunks through the fused
-    kernel instead of dequantizing (VERDICT r4 #3: the int8 path's
-    _INT8_M_TILE treatment applied to 4-bit formats, killing the
-    long-prompt prefill collapse)."""
+    """Prefill-shaped m (> gemv.M_MAX) runs dequantize-then-dot; the
+    kernel over <= M_MAX-row chunks of the same rows must agree with it."""
 
     @pytest.mark.parametrize("fmt", ["int4", "any4", "nf4"])
     def test_chunked_matches_dequant_path(self, fmt):
@@ -976,11 +960,12 @@ class TestChunkedPrefill:
         w = jax.random.normal(jax.random.PRNGKey(4), (n, k), jnp.float32)
         qt = lin.quantize_tensor(w, fmt, group_size=128)
         x = jax.random.normal(jax.random.PRNGKey(5), (m, k), jnp.float32)
-        # fused_m_max=16 forces the chunk loop (3 tiles incl. a ragged
-        # one); fused_m_max=0 keeps the dequantize-then-matmul reference
-        # addressable
-        y = lin.linear(x, qt, fused_m_max=16, interpret=INTERPRET)
-        ref = lin.linear(x, qt, fused_m_max=0)
+        y = np.concatenate([
+            np.asarray(lin.linear(x[i:i + gemv.M_MAX], qt,
+                                  interpret=INTERPRET))
+            for i in range(0, m, gemv.M_MAX)])
+        assert not lin.lut_kernel_applies(qt, m, interpret=True)
+        ref = lin.linear(x, qt, interpret=INTERPRET)
         assert y.shape == (m, n)
         _assert_close(y, ref)
 
@@ -989,7 +974,174 @@ class TestChunkedPrefill:
         w = jax.random.normal(jax.random.PRNGKey(6), (n, k), jnp.float32)
         qt = lin.quantize_tensor(w, "int4", group_size=128)
         x = jax.random.normal(jax.random.PRNGKey(7), (2, 20, k), jnp.float32)
-        y = lin.linear(x, qt, fused_m_max=16, interpret=INTERPRET)
-        ref = lin.linear(x, qt, fused_m_max=0)
+        y = lin.linear(x, qt, interpret=INTERPRET)
+        ref = np.stack([np.concatenate([
+            np.asarray(lin.linear(x[i, j:j + gemv.M_MAX], qt,
+                                  interpret=INTERPRET))
+            for j in range(0, 20, gemv.M_MAX)]) for i in range(2)])
         assert y.shape == (2, 20, n)
         _assert_close(y, ref)
+
+
+def _random_lut_weight(key, n, k, g=128, table="per_row"):
+    """Random codes, scales, zeros and table in the kernel's packing, with
+    the bf16-rounded dense weight they reconstruct to."""
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    codes = jax.random.randint(k1, (n, k), 0, 16).astype(jnp.uint8)
+    packed = packing.pack_int4(codes)
+    kp = packed.shape[1] * packing.PLANES
+    scales = jax.random.uniform(k2, (kp // g, n), jnp.float32, 0.5, 1.5)
+    zeros = jax.random.normal(k3, (kp // g, n), jnp.float32) * 0.1
+    if table == "per_row":
+        lut = jax.random.normal(k4, (n, 16), jnp.float32)
+    elif table == "global":
+        lut = jax.random.normal(k4, (1, 16), jnp.float32)
+    else:
+        lut = jnp.asarray(gemv.INT4_RAMP, jnp.float32)[None, :]
+    L = np.broadcast_to(np.asarray(lut), (n, 16))
+    c = np.asarray(packing.unpack_int4(packed, kp)).astype(np.int64)
+    W = np.take_along_axis(L, c, axis=1) \
+        * np.repeat(np.asarray(scales).T, g, axis=1) \
+        + np.repeat(np.asarray(zeros).T, g, axis=1)
+    W = np.asarray(jnp.asarray(W, jnp.float32).astype(jnp.bfloat16)
+                   .astype(jnp.float32))[:, :k]
+    return (packed, scales, zeros, lut), W
+
+
+def _bf16(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+class TestLutGemv:
+    """The lookup GEMV kernel itself in interpret mode: the m == 1 body
+    and the m <= 16 tensor-core body, row padding, the three kinds of
+    table, group sizes, split-k and NaN propagation -- each against the
+    bf16 dense weight the codes reconstruct to."""
+
+    @pytest.mark.parametrize("n", [1, 31, 32, 100])
+    @pytest.mark.parametrize("m", [1, 2, 16])
+    def test_shapes_and_padding(self, n, m):
+        k = 1536                      # a partial 1024-wide pack block
+        args, W = _random_lut_weight(jax.random.PRNGKey(n), n, k)
+        x = jax.random.normal(jax.random.PRNGKey(m), (m, k), jnp.float32)
+        y = gemv.lut_gemv(x, *args, group_size=128, interpret=True)
+        assert y.shape == (m, n) and y.dtype == jnp.float32
+        _assert_close(y, _bf16(x) @ W.T, tol=1e-5)
+
+    @pytest.mark.parametrize("table", ["per_row", "global", "int4"])
+    def test_tables(self, table):
+        n, k = 64, 2048
+        args, W = _random_lut_weight(jax.random.PRNGKey(3), n, k,
+                                     table=table)
+        x = jax.random.normal(jax.random.PRNGKey(4), (3, k), jnp.float32)
+        y = gemv.lut_gemv(x, *args, group_size=128, interpret=True)
+        _assert_close(y, _bf16(x) @ W.T, tol=1e-5)
+
+    @pytest.mark.parametrize("g", [128, 256, 1024, 2048])
+    def test_group_sizes(self, g):
+        n, k = 32, 2048
+        args, W = _random_lut_weight(jax.random.PRNGKey(g), n, k, g=g)
+        x = jax.random.normal(jax.random.PRNGKey(5), (1, k), jnp.float32)
+        y = gemv.lut_gemv(x, *args, group_size=g, interpret=True)
+        _assert_close(y, _bf16(x) @ W.T, tol=1e-5)
+
+    @pytest.mark.parametrize("n_blocks,k_blocks,expect", [
+        (128, 4, 4),      # 4096 x 4096: every k block its own program
+        (192, 4, 2),      # fused qkv
+        (1792, 4, 1),     # fused gate/up: enough row blocks already
+        (128, 14, 2),     # down projection, k = 14336
+        (4008, 4, 1),     # the 128256-row head
+        (1, 3, 3),
+    ])
+    def test_num_splits(self, n_blocks, k_blocks, expect):
+        s = gemv.num_splits(n_blocks, k_blocks)
+        assert s == expect and k_blocks % s == 0
+
+    def test_split_k_partial_sums(self):
+        # few rows, many k blocks: the grid splits k and XLA adds the
+        # per-split partial sums
+        n, k = 32, 8192
+        assert gemv.num_splits(1, k // packing.PACK_BLOCK) == 8
+        args, W = _random_lut_weight(jax.random.PRNGKey(6), n, k)
+        x = jax.random.normal(jax.random.PRNGKey(7), (2, k), jnp.float32)
+        y = gemv.lut_gemv(x, *args, group_size=128, interpret=True)
+        _assert_close(y, _bf16(x) @ W.T, tol=1e-5)
+
+    @pytest.mark.parametrize("shards", [2, 4])
+    def test_row_shards(self, shards):
+        # a row-parallel weight packs each k shard padded on its own; the
+        # kernel reads the shard-padded words with shard-aligned x
+        n, k = 64, 1536 * shards // 2
+        w = jax.random.normal(jax.random.PRNGKey(8), (n, k))
+        q1 = lin.quantize_tensor(w, "int4", group_size=128)
+        qs = lin.quantize_tensor(w, "int4", group_size=128,
+                                 row_shards=shards)
+        x = jax.random.normal(jax.random.PRNGKey(9), (1, k))
+        _assert_close(lin.linear(x, qs, interpret=True),
+                      np.asarray(lin.linear(x, q1, interpret=True)),
+                      tol=1e-5)
+
+    def test_nan_activation_propagates(self):
+        n, k = 32, 1024
+        args, _ = _random_lut_weight(jax.random.PRNGKey(10), n, k)
+        x = jnp.ones((1, k), jnp.float32).at[0, 5].set(jnp.nan)
+        y = np.asarray(gemv.lut_gemv(x, *args, group_size=128,
+                                     interpret=True))
+        assert np.isnan(y).all()
+
+    def test_rejects_prefill_shaped_m(self):
+        args, _ = _random_lut_weight(jax.random.PRNGKey(11), 32, 1024)
+        x = jnp.ones((gemv.M_MAX + 1, 1024), jnp.float32)
+        with pytest.raises(AssertionError):
+            gemv.lut_gemv(x, *args, group_size=128, interpret=True)
+
+
+class TestDispatch:
+    """linear() runs the kernel on "gpu", XLA on "cpu", and refuses any
+    other platform; the kernel takes only its own formats and shapes."""
+
+    @pytest.mark.parametrize("platform,expect", [("gpu", True),
+                                                 ("cpu", False)])
+    def test_platform_choice(self, monkeypatch, platform, expect):
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        qt = lin.quantize_tensor(
+            jax.random.normal(jax.random.PRNGKey(0), (32, 256)), "int4")
+        assert lin.lut_kernel_applies(qt, 1) is expect
+
+    @pytest.mark.parametrize("platform", ["rocm", "metal"])
+    def test_other_platforms_raise(self, monkeypatch, platform):
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        qt = lin.quantize_tensor(
+            jax.random.normal(jax.random.PRNGKey(0), (32, 256)), "int4")
+        with pytest.raises(NotImplementedError):
+            lin.linear(jnp.ones((1, 256)), qt)
+
+    @pytest.mark.parametrize("fmt,g,m,expect", [
+        ("any4", 128, 1, True), ("nf4", 128, 16, True),
+        ("int4", 256, 4, True), ("any4", 64, 1, False),
+        ("any4", 128, 17, False), ("any4t", 128, 1, False),
+        ("int4p", 128, 1, False), ("w4a8", 128, 1, False),
+    ])
+    def test_kernel_formats(self, monkeypatch, fmt, g, m, expect):
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        kw = dict(kmeans_iters=2) if fmt.startswith("any4") else {}
+        qt = lin.quantize_tensor(
+            jax.random.normal(jax.random.PRNGKey(1), (32, 512)), fmt,
+            group_size=g, **kw)
+        assert lin.lut_kernel_applies(qt, m) is expect
+
+    def test_gpu_linear_calls_kernel(self, monkeypatch):
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        calls = []
+
+        def fake(x, packed, scales, zeros, lut, *, group_size,
+                 interpret=False):
+            calls.append((x.shape, packed.shape, lut.shape, group_size))
+            return jnp.zeros((*x.shape[:-1], packed.shape[0]), x.dtype)
+        monkeypatch.setattr(gemv, "lut_gemv", fake)
+        qt = lin.quantize_tensor(
+            jax.random.normal(jax.random.PRNGKey(2), (32, 256)), "int4")
+        y = lin.linear(jnp.ones((2, 256)), qt)
+        assert y.shape == (2, 32)
+        assert calls == [((2, 256), (32, 128), (1, 16), 128)]

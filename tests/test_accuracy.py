@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.evals import datasets, perplexity
-from any4_tpu.models import llama
-from any4_tpu.quant import api
+from any4.evals import datasets, perplexity
+from any4.models import llama
+from any4.quant import api
 
 
 @pytest.fixture(scope="module")

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.ops import quant
-from any4_tpu.quant import anyq
+from any4.ops import quant
+from any4.quant import anyq
 
 
 def _lut_weights(rng, n, k, group_size):
@@ -96,7 +96,7 @@ class TestAny4Quantize:
         quantize.py:542-545): zeros are exactly 0 and the quantized
         linear still reconstructs well."""
         import numpy as np
-        from any4_tpu.ops import linear as lin
+        from any4.ops import linear as lin
         w = jax.random.normal(jax.random.PRNGKey(6), (16, 256))
         qt = lin.quantize_tensor(w, "any4", group_size=128,
                                  scale_only=True, kmeans_iters=20)

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.models import llama
-from any4_tpu.ops import quant
-from any4_tpu.quant import anyq, awq, nnq
+from any4.models import llama
+from any4.ops import quant
+from any4.quant import anyq, awq, nnq
 
 
 class TestAwqPrimitives:
@@ -81,7 +81,7 @@ class TestAwqModel:
     def test_run_awq_mixtral_schema(self):
         """MoE schema: per-expert w1/w3 scale group off the post-attention
         norm and per-expert w3->w2 folds (reference mixtral adapter)."""
-        from any4_tpu.models import mixtral
+        from any4.models import mixtral
         cfg = mixtral.MixtralConfig.tiny(vocab=128, layers=1)
         params = mixtral.init_params(cfg, jax.random.PRNGKey(0))
         ids = jax.random.randint(jax.random.PRNGKey(1), (1, 12), 0,

@@ -22,7 +22,7 @@ _WORKER = textwrap.dedent("""
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from any4_tpu.parallel import distributed
+    from any4.parallel import distributed
 
     pid = int(sys.argv[1])
     ok = distributed.initialize(coordinator_address=sys.argv[2],
@@ -55,7 +55,7 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-@pytest.mark.skipif(os.environ.get("ANY4_TPU_SKIP_MULTIPROC") == "1",
+@pytest.mark.skipif(os.environ.get("ANY4_SKIP_MULTIPROC") == "1",
                     reason="multi-process test disabled")
 def test_two_process_distributed_psum(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

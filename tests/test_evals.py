@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.evals import analyze, datasets, harness
-from any4_tpu.models import llama
-from any4_tpu.quant import api
+from any4.evals import analyze, datasets, harness
+from any4.models import llama
+from any4.quant import api
 
 
 @pytest.fixture(scope="module")

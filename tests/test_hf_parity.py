@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from any4_tpu.models import llama, loader, opt  # noqa: E402
+from any4.models import llama, loader, opt  # noqa: E402
 
 
 def _assert_logits_close(ours, theirs, atol=2e-4):
@@ -133,7 +133,7 @@ class TestMixtralParity:
     ground truth for its Mixtral-8x7B results (README.md:309-327)."""
 
     def test_logits_match(self):
-        from any4_tpu.models import mixtral
+        from any4.models import mixtral
         model = _hf_mixtral(seed=6)
         cfg, params = loader.convert_torch_mixtral(model, dtype=jnp.float32)
         cfg = cfg.__class__(**{**cfg.__dict__, "dtype": jnp.float32})
@@ -143,7 +143,7 @@ class TestMixtralParity:
         _assert_logits_close(ours, ref)
 
     def test_decode_cache_matches_full_forward(self):
-        from any4_tpu.models import mixtral
+        from any4.models import mixtral
         model = _hf_mixtral(seed=7)
         cfg, params = loader.convert_torch_mixtral(model, dtype=jnp.float32)
         cfg = cfg.__class__(**{**cfg.__dict__, "dtype": jnp.float32})
@@ -170,7 +170,7 @@ class TestMixtralParity:
 
     def test_load_mixtral_safetensors_roundtrip(self, tmp_path):
         """save_pretrained -> load_mixtral reads the HF shard layout."""
-        from any4_tpu.models import mixtral
+        from any4.models import mixtral
         model = _hf_mixtral(seed=8)
         model.save_pretrained(tmp_path, safe_serialization=True)
         cfg, params = loader.load_mixtral(str(tmp_path), dtype=jnp.float32)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.quant import kmeans
+from any4.quant import kmeans
 
 
 class TestKmeansRows:

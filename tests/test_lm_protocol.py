@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.evals import code_eval, tasks_local
-from any4_tpu.evals.lm_eval_adapter import JaxCausalLM
-from any4_tpu.models import generate as gen
-from any4_tpu.models import llama
+from any4.evals import code_eval, tasks_local
+from any4.evals.lm_eval_adapter import JaxCausalLM
+from any4.models import generate as gen
+from any4.models import llama
 
 
 @pytest.fixture(scope="module")

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.models import checkpoint, generate, llama
-from any4_tpu.ops import linear as lin
-from any4_tpu.quant import api
+from any4.models import checkpoint, generate, llama
+from any4.ops import linear as lin
+from any4.quant import api
 
 
 @pytest.fixture(scope="module")
@@ -206,9 +206,9 @@ class TestCheckpoint:
         contiguous columns (ADVICE round-1 medium finding)."""
         w = jax.random.normal(jax.random.PRNGKey(40), (64, 1536))
         qt = lin.quantize_tensor(w, "int4", group_size=128, row_shards=2)
-        # int4 routes to the pair-packed layout (round 5): per-shard
-        # k=768 pads to 1024 -> 2 * 1024/4 word columns, not 2*192/...
-        assert qt.fmt == "int4p" and qt.packed.shape[1] == 512
+        # int4 keeps the row-planar layout: per-shard k=768 pads to
+        # 1024 -> 2 * 1024/8 word columns, not 1536/8
+        assert qt.fmt == "int4" and qt.packed.shape[1] == 256
         with tempfile.TemporaryDirectory() as d:
             checkpoint.save_params(d, {"w": qt})
             loaded, _ = checkpoint.load_params(d)
@@ -221,7 +221,7 @@ class TestCheckpoint:
 
 class TestFusedProjections:
     def test_fused_matches_unfused_dense(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         ids = jax.random.randint(jax.random.PRNGKey(30), (1, 8), 0,
                                  cfg.vocab_size)
@@ -237,8 +237,8 @@ class TestFusedProjections:
     def test_partial_bias_set_preserved(self, tiny):
         """A layer with only k/v biases (no q) must not lose them when
         fusing (ADVICE round-1 low finding)."""
-        from any4_tpu.models import fuse
-        from any4_tpu.quant.api import _copy_tree
+        from any4.models import fuse
+        from any4.quant.api import _copy_tree
         cfg, params = tiny
         params = _copy_tree(params)
         hd, nkv = cfg.head_dim_, cfg.num_key_value_heads
@@ -258,7 +258,7 @@ class TestFusedProjections:
                                    atol=2e-2, rtol=2e-2)
 
     def test_fused_matches_unfused_quantized(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         qp = api.quantize_model(params, fmt="int4", group_size=32)
         ids = jax.random.randint(jax.random.PRNGKey(31), (1, 8), 0,
@@ -272,7 +272,7 @@ class TestFusedProjections:
                                    atol=1e-3, rtol=1e-3)
 
     def test_fused_decode_matches(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         fused = fuse.fuse_projections(params)
         ids = jax.random.randint(jax.random.PRNGKey(32), (1, 4), 0,
@@ -285,10 +285,8 @@ class TestFusedProjections:
 class TestQuantizedEmbeddings:
     """Quantized (tied) embedding tables: row-gather lookup + fused
     quantized LM-head matmul off the same packed table. No reference
-    analog (tinygemm only swaps nn.Linear modules); on TPU this halves
-    (w8a8) / quarters (4-bit) the decode-time HBM read of the vocab
-    matmul, which profiling showed at ~15% of the 1B decode step
-    (benchmarks/profile_decode_1b_int4p.json)."""
+    analog (tinygemm only swaps nn.Linear modules); this halves (w8a8) /
+    quarters (4-bit) the decode-time read of the vocab matmul."""
 
     @pytest.fixture(scope="class")
     def tied(self):

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.models import mixtral, opt
-from any4_tpu.ops import linear as lin
-from any4_tpu.quant import api
+from any4.models import mixtral, opt
+from any4.ops import linear as lin
+from any4.quant import api
 
 
 class TestOPT:
@@ -127,7 +127,7 @@ class TestMixtral:
                                        atol=1e-6, rtol=1e-6)
 
     def test_sparse_dispatch_quantized(self):
-        from any4_tpu.quant import api
+        from any4.quant import api
         cfg = mixtral.MixtralConfig.tiny(vocab=64, layers=1)
         params = mixtral.init_params(cfg, jax.random.PRNGKey(4))
         qp = api.quantize_model(params, fmt="int4", group_size=32,
@@ -168,7 +168,7 @@ class TestMixtralExpertFusion:
         return cfg, params
 
     def test_fused_matches_unfused_dense(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         ids = jax.random.randint(jax.random.PRNGKey(5), (1, 6), 0,
                                  cfg.vocab_size)
@@ -182,7 +182,7 @@ class TestMixtralExpertFusion:
                                    atol=2e-2, rtol=2e-2)
 
     def test_fused_matches_unfused_quantized(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         qp = api.quantize_model(params, fmt="int4", group_size=32)
         ids = jax.random.randint(jax.random.PRNGKey(6), (1, 6), 0,
@@ -200,8 +200,8 @@ class TestMixtralExpertFusion:
         import jax as _jax
         if len(_jax.devices()) < 2:
             pytest.skip("needs >=2 devices")
-        from any4_tpu.models import fuse
-        from any4_tpu.parallel import tp
+        from any4.models import fuse
+        from any4.parallel import tp
         # float32: under TP the psum's different summation order can flip
         # a bf16 router top-k near-tie, changing the routed expert set
         # (same caveat as TestMixtralTP)
@@ -238,7 +238,7 @@ class TestStackedExperts:
         return cfg, params
 
     def test_stacked_matches_dense(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         ids = jax.random.randint(jax.random.PRNGKey(9), (2, 6), 0,
                                  cfg.vocab_size)
@@ -256,7 +256,7 @@ class TestStackedExperts:
                                    atol=2e-2, rtol=2e-2)
 
     def test_stacked_after_w13_fusion(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         ids = jax.random.randint(jax.random.PRNGKey(10), (1, 5), 0,
                                  cfg.vocab_size)
@@ -270,7 +270,7 @@ class TestStackedExperts:
                                    atol=5e-2, rtol=5e-2)
 
     def test_stacked_quantized_runs_and_is_close(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         st = fuse.stack_experts(params)
         qp = api.quantize_model(st, fmt="int8", group_size=32)
@@ -284,8 +284,8 @@ class TestStackedExperts:
                                    atol=0.15, rtol=0.15)
 
     def test_stacked_engine_matches_generate(self, tiny):
-        from any4_tpu.models import fuse, generate
-        from any4_tpu.serving import engine as eng
+        from any4.models import fuse, generate
+        from any4.serving import engine as eng
         cfg, params = tiny
         st = fuse.stack_experts(params)
         rng = np.random.RandomState(5)

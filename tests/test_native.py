@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu import native
-from any4_tpu.ops import packing, quant
+from any4 import native
+from any4.ops import packing, quant
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C++ toolchain available")
@@ -52,7 +52,7 @@ class TestNativeQuantizePath:
         data plane and must produce bit-identical packed/scales to the jnp
         path (the native plane is the real pipeline stage for checkpoint
         conversion, not a bystander)."""
-        from any4_tpu.ops import linear as lin
+        from any4.ops import linear as lin
         rng = np.random.RandomState(5)
         w = rng.randn(64, 1536).astype(np.float32)
         qt_native = lin.quantize_tensor(w, "int4", group_size=128,

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.ops import packing
+from any4.ops import packing
 
 
 class TestPackInt4:

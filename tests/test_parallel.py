@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.models import llama
-from any4_tpu.parallel import tp
-from any4_tpu.quant import api
+from any4.models import llama
+from any4.parallel import tp
+from any4.quant import api
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
@@ -86,7 +86,7 @@ class TestFusedTP:
         """Fused qkv/gateup weights must be interleave-resharded: a
         contiguous P('tp') split would give shard 0 all q rows (ADVICE
         round-1 high finding)."""
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         fused = fuse.fuse_projections(params)
         mesh = tp.make_mesh(dp=2, tp=4)
@@ -101,7 +101,7 @@ class TestFusedTP:
                                    atol=1e-3, rtol=1e-3)
 
     def test_fused_quantized_tp_matches_single(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         qparams = api.quantize_model(params, fmt="any4", group_size=32,
                                      kmeans_iters=3, row_parallel_shards=4)
@@ -118,7 +118,7 @@ class TestFusedTP:
                                    atol=5e-2, rtol=5e-2)
 
     def test_fused_without_cfg_rejected(self, tiny):
-        from any4_tpu.models import fuse
+        from any4.models import fuse
         cfg, params = tiny
         fused = fuse.fuse_projections(params)
         mesh = tp.make_mesh(dp=2, tp=4)
@@ -131,7 +131,7 @@ class TestBiasesTP:
         """q/k/v biases shard over tp; o_proj bias must survive the psum
         exactly once (ADVICE round-1 low findings)."""
         cfg, params = tiny
-        from any4_tpu.quant.api import _copy_tree
+        from any4.quant.api import _copy_tree
         params = _copy_tree(params)
         key = jax.random.PRNGKey(7)
         hd, nq, nkv = cfg.head_dim_, cfg.num_attention_heads, \
@@ -182,7 +182,7 @@ class TestInt4PairTP:
         packing + psum of partial products matches the unsharded kernel."""
         import jax.numpy as jnp
         from jax.sharding import NamedSharding, PartitionSpec as P
-        from any4_tpu.ops import linear as lin
+        from any4.ops import linear as lin
 
         n, k, S = 128, 2560, 2  # k/S = 1280 pads to 2048 per shard
         w = jax.random.normal(jax.random.PRNGKey(20), (n, k))
@@ -291,9 +291,9 @@ class TestW4A8TP:
     def test_interleave_rows_grouped_and_rowscale(self):
         """Fused-projection reshard for the XLA-dot layouts (round 5):
         output rows live on packed axis 1 (grouped) / axis 0 (rowscale)."""
-        from any4_tpu.models.fuse import concat_quantized
-        from any4_tpu.ops import linear as lin
-        from any4_tpu.parallel.tp import _interleave_rows
+        from any4.models.fuse import concat_quantized
+        from any4.ops import linear as lin
+        from any4.parallel.tp import _interleave_rows
         k, tpn = 256, 2
         for fmt in ("w8a8", "w8a8r"):
             parts = []
@@ -333,8 +333,8 @@ class TestW4A8TP:
     def test_interleave_rows_w4a8(self):
         """Fused quad-packed weights permute WORD rows (four logical
         rows each)."""
-        from any4_tpu.models import fuse
-        from any4_tpu.ops import linear as lin
+        from any4.models import fuse
+        from any4.ops import linear as lin
 
         k = 512
         wq = jax.random.normal(jax.random.PRNGKey(41), (64, k))
@@ -357,8 +357,8 @@ class TestPairPackedReshard:
         """Fused pair-packed weights permute WORD rows (two logical rows
         each); per-row indexing would scramble the codes silently."""
         import jax.numpy as jnp
-        from any4_tpu.models import fuse
-        from any4_tpu.ops import linear as lin
+        from any4.models import fuse
+        from any4.ops import linear as lin
 
         k = 1024
         wq = jax.random.normal(jax.random.PRNGKey(30), (64, k))
@@ -383,7 +383,7 @@ class TestMixtralTP:
 
     @pytest.fixture(scope="class")
     def tiny_moe(self):
-        from any4_tpu.models import mixtral
+        from any4.models import mixtral
         cfg = mixtral.MixtralConfig(
             vocab_size=128, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=8,
@@ -394,7 +394,7 @@ class TestMixtralTP:
         return cfg, params
 
     def test_dense_moe_tp_matches_single(self, tiny_moe):
-        from any4_tpu.models import mixtral
+        from any4.models import mixtral
         cfg, params = tiny_moe
         mesh = tp.make_mesh(dp=2, tp=4)
         sharded, specs = tp.shard_params(params, mesh)
@@ -409,7 +409,7 @@ class TestMixtralTP:
                                    atol=1e-3, rtol=1e-3)
 
     def test_quantized_moe_tp_matches_single(self, tiny_moe):
-        from any4_tpu.models import mixtral
+        from any4.models import mixtral
         cfg, params = tiny_moe
         qparams = api.quantize_model(params, fmt="int4", group_size=32,
                                      row_parallel_shards=4)

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from any4_tpu.evals import analyze
-from any4_tpu.models import llama
-from any4_tpu.profiler import profile_decode_components
-from any4_tpu.quant import nnq
+from any4.evals import analyze
+from any4.models import llama
+from any4.profiler import profile_decode_components
+from any4.quant import nnq
 
 
 def _tiny():
@@ -22,7 +22,7 @@ class TestProfiler:
     def test_attention_mlp_breakdown(self):
         cfg, params = _tiny()
         prof = profile_decode_components(params, cfg, ctx=64, iters=3,
-                                         rounds=2)
+                                         warmup=1)
         assert set(prof) == {"layers.0", "layers.1", "totals"}
         for k in ("layers.0", "layers.1"):
             assert prof[k]["attention_ms"] > 0
@@ -33,7 +33,7 @@ class TestProfiler:
     def test_max_layers_extrapolates(self):
         cfg, params = _tiny()
         prof = profile_decode_components(params, cfg, ctx=64, iters=2,
-                                         rounds=1, max_layers=1)
+                                         warmup=1, max_layers=1)
         assert prof["totals"]["layers_profiled"] == 1
         assert "layers.1" not in prof
 
@@ -54,7 +54,7 @@ class TestNnqCossim:
     def test_cossim_objective_improves_y_cossim(self):
         rng = np.random.RandomState(0)
         w = jnp.asarray(rng.randn(16, 256), jnp.float32)
-        from any4_tpu.ops.quant import group_codes_float
+        from any4.ops.quant import group_codes_float
         wg, scales, zeros = group_codes_float(w, 4, 64)
         # deliberately poor init: uniform ramp
         lut0 = jnp.tile(jnp.linspace(0.0, 15.0, 16)[None], (16, 1))
@@ -81,7 +81,7 @@ class TestNnqCossim:
     def test_w_cossim_objective_runs(self):
         rng = np.random.RandomState(1)
         w = jnp.asarray(rng.randn(8, 128), jnp.float32)
-        from any4_tpu.ops.quant import group_codes_float
+        from any4.ops.quant import group_codes_float
         wg, scales, zeros = group_codes_float(w, 4, 64)
         lut0 = jnp.tile(jnp.linspace(0.0, 15.0, 16)[None], (8, 1))
         lut, assign = nnq.learn_lut(w, lut0, scales, zeros, group_size=64,

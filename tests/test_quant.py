@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.ops import formats, quant
+from any4.ops import formats, quant
 
 
 def _grid_weights(key, n, k, n_bit, group_size):
@@ -109,7 +109,7 @@ class TestGroupQuant:
                                    atol=1e-6)
 
     def test_int_zeros_flows_through_quantize_tensor(self):
-        from any4_tpu.ops import linear as lin
+        from any4.ops import linear as lin
         w = np.asarray(
             jax.random.normal(jax.random.PRNGKey(6), (16, 256)))
         qt = lin.quantize_tensor(w, "int4", group_size=128, int_zeros=True)
@@ -125,7 +125,7 @@ class TestGroupQuant:
             lin.quantize_tensor(w, "any4", group_size=128, int_zeros=True)
 
     def test_scale_only_flows_through_quantize_tensor(self):
-        from any4_tpu.ops import linear as lin
+        from any4.ops import linear as lin
         w = jax.random.normal(jax.random.PRNGKey(4), (16, 256))
         qt = lin.quantize_tensor(w, "int4", group_size=128, scale_only=True)
         np.testing.assert_array_equal(np.asarray(qt.zeros), 0.0)

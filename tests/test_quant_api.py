@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from any4_tpu.models import llama
-from any4_tpu.ops import linear as lin
-from any4_tpu.quant import api
+from any4.models import llama
+from any4.ops import linear as lin
+from any4.quant import api
 
 
 @pytest.fixture(scope="module")
@@ -119,7 +119,7 @@ class TestQuantizeModel:
 class TestCalibrationIntegration:
     def test_online_calibrate_fn(self, tiny):
         cfg, params = tiny
-        from any4_tpu import calibrate as cal
+        from any4 import calibrate as cal
         ids = jax.random.randint(jax.random.PRNGKey(1), (1, 16), 0,
                                  cfg.vocab_size)
         fn = cal.make_calibrate_fn(params, cfg, ids)
@@ -134,9 +134,9 @@ class TestOomRetry:
         """Device OOM during clustering retries with row_chunk=8 (the
         reference's CUDA-OOM -> CPU re-cluster analog, quantize.py:851)."""
         import jax
-        from any4_tpu.models import llama
-        from any4_tpu.ops import linear as lin
-        from any4_tpu.quant import api
+        from any4.models import llama
+        from any4.ops import linear as lin
+        from any4.quant import api
 
         cfg = llama.LlamaConfig.tiny(vocab=64, layers=1)
         params = llama.init_params(cfg, jax.random.PRNGKey(0))

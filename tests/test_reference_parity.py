@@ -60,7 +60,7 @@ def _w(shape=(16, 256), seed=0, dtype=np.float32):
 
 class TestGroupQuantParity:
     def test_group_quantize_tensor_exact(self, ref):
-        from any4_tpu.ops import quant as q
+        from any4.ops import quant as q
         w = _w((32, 512), seed=1)
         codes, scales, zeros = q.group_quantize(w, n_bit=4, group_size=128)
         sz = np.asarray(q.pack_scales_and_zeros(scales, zeros))
@@ -76,7 +76,7 @@ class TestGroupQuantParity:
     def test_group_q_asym_exact(self, ref, n_bit, g):
         """Un-rounded group normalization (the anyq clustering domain)
         matches reference group_q bit-for-bit (quantize.py:106-149)."""
-        from any4_tpu.ops import quant as q
+        from any4.ops import quant as q
         w = _w((8, 512), seed=n_bit * 10 + g)
         wq_f, scales, zeros = q.group_codes_float(w, n_bit, g)
         t = ref.torch.from_numpy(w)
@@ -86,7 +86,7 @@ class TestGroupQuantParity:
         np.testing.assert_array_equal(sz, ref_sz.float().numpy())
 
     def test_group_q_symmetric_exact(self, ref):
-        from any4_tpu.ops import quant as q
+        from any4.ops import quant as q
         w = _w((8, 256), seed=7)
         codes, scales, zeros = q.group_quantize(
             w, n_bit=4, group_size=128, symmetric=True)
@@ -104,7 +104,7 @@ class TestGroupQuantParity:
                                       ref_codes)
 
     def test_group_q1_int_zeros_exact(self, ref):
-        from any4_tpu.ops import quant as q
+        from any4.ops import quant as q
         w = _w((8, 256), seed=11)
         codes, scales, zeros = q.group_quantize(
             w, n_bit=4, group_size=64, int_zeros=True)
@@ -125,7 +125,7 @@ class TestGroupQuantParity:
                                    rtol=1e-6, atol=1e-7)
 
     def test_reconstruction_matches_degroup(self, ref):
-        from any4_tpu.ops import quant as q
+        from any4.ops import quant as q
         w = _w((8, 256), seed=3)
         codes, scales, zeros = q.group_quantize(w, n_bit=4, group_size=128)
         recon = np.asarray(q.group_dequantize(codes, scales, zeros,
@@ -141,7 +141,7 @@ class TestGroupQuantParity:
 
 class TestIntqParity:
     def test_intq_reconstruct_exact(self, ref):
-        from any4_tpu.ops import quant as q
+        from any4.ops import quant as q
         w = _w((8, 256), seed=5)
         t = ref.torch.from_numpy(w)
         ref_recon = ref.q.intq_reconstruct_tensor(
@@ -161,8 +161,8 @@ class TestAnyqParity:
     def test_anyq_wmse_within_1pct(self, ref):
         """Same matrix through both any4 pipelines: reconstruction W-MSE
         must agree within 1% relative (reference quantize.py:523-637)."""
-        from any4_tpu.ops import quant as q
-        from any4_tpu.quant import anyq
+        from any4.ops import quant as q
+        from any4.quant import anyq
         w = _w((16, 512), seed=17)
 
         t = ref.torch.from_numpy(w)
@@ -190,8 +190,8 @@ class TestAnyqParity:
         """Rows built from exactly 16 distinct group-normalized values
         reconstruct exactly in both implementations (the reference's
         test_anyq.py:39-49 exactness property)."""
-        from any4_tpu.ops import quant as q
-        from any4_tpu.quant import anyq
+        from any4.ops import quant as q
+        from any4.quant import anyq
         rng = np.random.default_rng(23)
         vals = np.sort(rng.normal(size=16)).astype(np.float32)
         w = vals[rng.integers(0, 16, (4, 128))].astype(np.float32)
@@ -213,8 +213,8 @@ class TestAnyqParity:
 
     def test_anyq_global_lut_wmse(self, ref):
         """per_row=False (one global LUT, reference quantize.py:528-530)."""
-        from any4_tpu.ops import quant as q
-        from any4_tpu.quant import anyq
+        from any4.ops import quant as q
+        from any4.quant import anyq
         w = _w((8, 256), seed=29)
         t = ref.torch.from_numpy(w)
         assign, lut_ref, sz_ref = ref.q.anyq_quantize_tensor(
@@ -247,7 +247,7 @@ class TestMXParity:
     @pytest.mark.parametrize("fmt", FMTS)
     @pytest.mark.parametrize("rnd", ["nearest", "even", "floor"])
     def test_quantize_mx_exact(self, refmx, fmt, rnd):
-        from any4_tpu.ops import mx as jmx
+        from any4.ops import mx as jmx
         a = _w((8, 96), seed=11) * 3
         want = refmx.mx_ops._quantize_mx(
             refmx.torch.from_numpy(a), 8, fmt, axes=[-1], block_size=32,
@@ -258,7 +258,7 @@ class TestMXParity:
 
     @pytest.mark.parametrize("fmt", ["fp8_e4m3", "bfloat16", "fp16"])
     def test_quantize_elemwise_exact(self, refmx, fmt):
-        from any4_tpu.ops import mx as jmx
+        from any4.ops import mx as jmx
         a = _w((4, 64), seed=12) * 100
         eb, mb, _, mn, _ = jmx.format_params(fmt)
         want = refmx.elem._quantize_elemwise_core(
@@ -267,7 +267,7 @@ class TestMXParity:
         np.testing.assert_array_equal(got, want)
 
     def test_scale_rounding_modes(self, refmx):
-        from any4_tpu.ops import mx as jmx
+        from any4.ops import mx as jmx
         a = _w((4, 64), seed=13)
         for mode in ("even", "floor", "ceil"):
             want = refmx.mx_ops._shared_exponents(
@@ -280,7 +280,7 @@ class TestMXParity:
 
     def test_block_padding(self):
         # non-multiple block length pads then slices back
-        from any4_tpu.ops import mx as jmx
+        from any4.ops import mx as jmx
         a = _w((3, 50), seed=14)
         q = np.asarray(jmx.quantize_mx(a, "fp4", block_size=32))
         assert q.shape == a.shape and np.isfinite(q).all()
@@ -288,8 +288,8 @@ class TestMXParity:
     def test_matches_mx4_kernel_table(self):
         # the mx4 kernel format's table is the fp4 element grid normalized
         # by max_norm=6 (ops/formats.py stores absmax-relative values)
-        from any4_tpu.ops import mx as jmx
-        from any4_tpu.ops.formats import get_table
+        from any4.ops import mx as jmx
+        from any4.ops.formats import get_table
         vals = np.unique(np.asarray(jmx.quantize_elemwise(
             np.linspace(-6, 6, 1001, dtype=np.float32), 3, 2, 6.0))) / 6.0
         table = np.unique(np.asarray(get_table("fp4"), np.float32))
@@ -315,8 +315,8 @@ class TestModelParity:
 
         import jax.numpy as jnp
 
-        from any4_tpu.models import loader
-        from any4_tpu.quant import api
+        from any4.models import loader
+        from any4.quant import api
 
         torch = ref.torch
         hf_cfg = transformers.LlamaConfig(
@@ -356,7 +356,7 @@ class TestModelParity:
     def _jax_nll(params, cfg, ids):
         import jax.numpy as jnp
 
-        from any4_tpu.models import llama
+        from any4.models import llama
         logits, _ = llama.forward(params, cfg,
                                   jnp.asarray(ids, jnp.int32))
         logits = np.asarray(logits, np.float32)
@@ -432,8 +432,8 @@ class TestAny4Q8ModelAccuracy:
 
         import jax.numpy as jnp
 
-        from any4_tpu.models import loader
-        from any4_tpu.quant import api
+        from any4.models import loader
+        from any4.quant import api
 
         torch = ref.torch
         hf_cfg = transformers.LlamaConfig(
@@ -484,9 +484,9 @@ class TestCalibratedModelParity:
 
         import jax.numpy as jnp
 
-        from any4_tpu import calibrate as cal
-        from any4_tpu.models import loader
-        from any4_tpu.quant import api
+        from any4 import calibrate as cal
+        from any4.models import loader
+        from any4.quant import api
 
         torch = ref.torch
         hf_cfg = transformers.LlamaConfig(
@@ -602,7 +602,7 @@ class TestQualityOrdering:
     def test_wmse_ordering(self, g):
         import jax.numpy as jnp
 
-        from any4_tpu.ops import linear as lin
+        from any4.ops import linear as lin
         w = _w((64, 1024), seed=g)
         mses = {}
         for fmt in ("any4", "nf4", "fp4"):
@@ -618,8 +618,8 @@ class TestQualityOrdering:
         transformers = pytest.importorskip("transformers")
         import jax.numpy as jnp
 
-        from any4_tpu.models import loader
-        from any4_tpu.quant import api
+        from any4.models import loader
+        from any4.quant import api
 
         torch = ref.torch
         hf_cfg = transformers.LlamaConfig(
